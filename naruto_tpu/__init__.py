@@ -1,15 +1,15 @@
-"""NARUTO-TPU: TPU-native active neural reconstruction framework.
+"""NARUTO-TPU: active neural reconstruction in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 oppo-us-research/NARUTO (CVPR 2024): an embodied agent actively explores a 3D
 scene, builds a neural implicit surface (SDF + color + uncertainty) with a
 Co-SLAM-style mapper, and plans next-best-views by aggregating predicted
 uncertainty over a goal space.
 
-Layer map (mirrors reference SURVEY.md L0-L10, re-designed TPU-first):
+Layer map (mirrors reference SURVEY.md L0-L10):
   config/        typed dataclass config tree (ref: configs/ + cfg_loader.py)
   geometry/      camera rays, pose math, ERP conversions (ref: src/layers/)
-  ops/           hash-grid / one-blob / grid-sample / MLP primitives + Pallas
+  ops/           hash-grid / one-blob / grid-sample / MLP / segment-sum ops
   mapping/       neural field, renderer, losses, keyframes, mapper
                  (ref: src/slam/coslam/)
   planner/       FSM, uncertainty aggregation, RRT, rotation planning

@@ -63,32 +63,33 @@ class CamConfig:
 @dataclass
 class GridConfig:
     # ref: replica_coslam.yaml grid section (tcnn HashGrid: 16 levels x 2
-    # features). The TPU-fast default keeps the same 32-dim output and total
-    # capacity but splits it as 4 levels x 8 features with bf16 gathers: TPU
-    # gather/sort costs scale with random-access row count, and L4F8+bf16
-    # cuts the hot-loop cost ~3x (see ops/encoding.py). Set (16, 2,
-    # "float32") to reproduce the reference hyperparameters exactly.
+    # features). The default keeps the same 32-dim output and total
+    # capacity but splits it as 4 levels x 8 features with bf16 gathers:
+    # 4x fewer random-access rows to gather and sort (see
+    # ops/encoding.py). Set (16, 2, "float32") to reproduce the reference
+    # hyperparameters exactly.
     enc: str = "HashGrid"
     hash_size: int = 16             # log2 of table entries per level
     n_levels: int = 4
     n_features_per_level: int = 8
     table_dtype: str = "bfloat16"
     # "vertex" = exact instant-ngp/tcnn vertex-keyed rows; "cell" = one row
-    # per cell with all 8 corner features contiguous (wide-row gathers are
-    # ~6x faster on TPU and the backward sorts 8x fewer keys; corners are
-    # per-cell copies); "hybrid" = cell-speed reads with TRUE shared-vertex
+    # per cell with all 8 corner features contiguous (one wide-row gather
+    # per point and level, and the backward sorts 8x fewer keys; corners
+    # are per-cell copies); "hybrid" = cell-row reads with TRUE shared-vertex
     # parameters on the dense coarse levels (their wide rows are derived by
     # 8 static slices each evaluation — exact tcnn semantics there; only
     # hashed fine levels keep per-cell copies). Default "hybrid"; set
     # "vertex" (or load configs/parity.yaml) for exact tcnn semantics on
-    # every level. Quality A/B in PERFORMANCE.md.
+    # every level. Quality A/B in PERFORMANCE.md (recorded before the move
+    # to the GPU; not re-priced there).
     layout: str = "hybrid"
     # cell/hybrid gradient sort payload: "frac" (one 3x10-bit packed-frac
     # column, weights recomputed post-sort; ~33% slimmer sort at <=0.3%
     # weight quantization — the same order as the "weights" path's bf16
     # rounding; see ops/segment.pack_frac) | "weights" (exact-to-bf16
-    # corner weights, 4 packed columns). Default "frac" per the r4
-    # bracketed A/B: 47.8 vs 43.2 it/s (+10.5%, results/r4_hw_queue.log).
+    # corner weights, 4 packed columns). Default "frac" (the slimmer sort;
+    # not re-priced on the GPU).
     sort_carry: str = "frac"
     base_resolution: int = 16
     voxel_sdf: float = 0.02         # finest resolution = max bbox len / this
@@ -173,7 +174,7 @@ class MapperConfig:
     # (active_ray_sampler.py:127) though its docstring says highest; False
     # reproduces the shipped behavior, True follows the paper's description
     active_select_highest: bool = False
-    # True = TPU-native jax.lax.approx_max_k for the K-of-oversample
+    # True = jax.lax.approx_max_k for the K-of-oversample
     # selection (recall ~0.95; the selection is a sampling heuristic, so a
     # near-miss set is statistically equivalent). False = exact top_k,
     # matching the reference's argpartition semantics.
@@ -357,7 +358,9 @@ class VisConfig:
 
 @dataclass
 class ParallelConfig:
-    """TPU sharding layout (no reference counterpart — SURVEY.md §2.7)."""
+    """Device sharding layout (no reference counterpart — SURVEY.md §2.7).
+    The mesh is one 'data' axis over every visible device
+    (parallel.make_mesh); mesh_shape and axis_names are not read by it."""
     mesh_shape: Tuple[int, ...] = (1,)   # devices along the 'data' (ray) axis
     axis_names: Tuple[str, ...] = ("data",)
     shard_rays: bool = False             # shard the ray batch over 'data'

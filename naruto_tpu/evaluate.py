@@ -30,17 +30,16 @@ def main(argv=None):
     p.add_argument("--n_samples", type=int, default=200_000)
     p.add_argument("--platform", default="cpu",
                    help="jax platform for the MAD field queries (default "
-                        "cpu: offline eval must not contend for the "
-                        "single-client TPU claim a live run may hold)")
+                        "cpu: a JAX process reserves most of a card's "
+                        "memory when it starts, so an offline eval on the "
+                        "card would starve a live run there — one process "
+                        "per card)")
     args = p.parse_args(argv)
 
     if args.platform:
         import jax
 
-        try:
-            jax.config.update("jax_platforms", args.platform)
-        except Exception:
-            pass  # backend already initialized
+        jax.config.update("jax_platforms", args.platform)
 
     from naruto_tpu.config import make_config
     from naruto_tpu.evaluation import (

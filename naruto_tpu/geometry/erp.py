@@ -1,6 +1,6 @@
 """Equirectangular (ERP) geometry: ray dirs, warps, depth<->distance.
 
-TPU-native (jax) redesign of the reference ERP pipeline (src/layers/
+JAX redesign of the reference ERP pipeline (src/layers/
 erp_conversions.py, erp_utils.py, c2e.py, c2e_utils.py — C23-C27 in
 SURVEY.md). The reference uses these for collision sensing: the simulator's
 ERP *plane* depth is converted to *radial distance* by warping to 6 skybox
@@ -28,9 +28,8 @@ import numpy as np
 def erp_ray_dirs(H: int, W: int) -> jnp.ndarray:
     """[H, W, 3] unit ray directions in the RDF camera frame.
 
-    Jitted with static (H, W): eagerly this is ~15 tiny op dispatches,
-    each a round trip on the remote-execute backend; under an outer trace
-    the jit simply inlines."""
+    Jitted with static (H, W): eagerly this is ~15 tiny op dispatches;
+    under an outer trace the jit simply inlines."""
     v = (jnp.arange(H, dtype=jnp.float32) + 0.5) / H
     u = (jnp.arange(W, dtype=jnp.float32) + 0.5) / W
     theta = jnp.pi * (0.5 - v)              # latitude, +pi/2 at top

@@ -7,7 +7,7 @@ depth filtering (0 < d <= depth_trunc) and duplicated to fill the quota when
 too few pixels are valid. Global sampling draws uniformly over all stored
 keyframe rays and returns (rays, kf_ids).
 
-TPU redesign: everything static-shape on device, and the ray store is kept
+Redesign: everything static-shape on device, and the ray store is kept
 FLAT [num_kf * rays_per_kf, 7] — the profiler showed that reshaping a
 multi-hundred-MB [kf, rays, 7] buffer to sample from it materialized a copy
 every BA iteration.

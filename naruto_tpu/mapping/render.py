@@ -56,8 +56,8 @@ def sample_z_vals(key, target_d: jnp.ndarray, rc: RenderConfig,
         nu, nd = rc.n_samples_d, rc.n_range_d
         z_uniform = jnp.broadcast_to(
             jnp.linspace(rc.near, rc.far, nu), (n, nu))
-        # both lists are sorted — merge by rank arithmetic instead of
-        # lax.sort (XLA's sort costs ~2 ms/iter even at this size):
+        # both lists are sorted — merge by rank arithmetic instead of a
+        # lax.sort:
         # u_rank[i] = i + #(d < u_i), d_rank[j] = j + #(u <= d_j) is a
         # valid permutation incl. ties, assembled via one-hot sums.
         s = nu + nd
@@ -150,7 +150,7 @@ def render_rays(params, spec: FieldSpec, rc: RenderConfig, key,
 
     Returns rendered maps + raw field outputs (for SDF losses), flattening
     [N, S] points into one [N*S] batch so the tiny MLPs see a single large
-    MXU-friendly matmul. `extra_pts01` (normalized) piggybacks extra hash-
+    matmul. `extra_pts01` (normalized) piggybacks extra hash-
     embedding queries (the smoothness regularizer) on the same encode so
     the backward runs ONE segment-sum; returned as "extra_embed".
     """

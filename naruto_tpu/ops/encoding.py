@@ -1,4 +1,4 @@
-"""Multi-resolution hash-grid encoding (instant-ngp style), TPU-native.
+"""Multi-resolution hash-grid encoding (instant-ngp style).
 
 Replaces tcnn's CUDA HashGrid used by the reference
 (src/slam/coslam/model/decoder.py:11, configs/Replica/replica_coslam.yaml
@@ -6,11 +6,12 @@ grid: hash_size=16, n_levels=16, F=2, base_resolution=16; finest resolution =
 max AABB side / voxel_sdf — upstream JointEncoding.get_resolution contract,
 SURVEY.md §2.9).
 
-Design notes (TPU):
+Design notes:
   * All levels live in ONE flat [total_entries, F] table. The forward pass is
-    a single big gather (XLA lowers to efficient dynamic-gather on TPU); the
-    backward pass is its transpose scatter-add. Index computation is pure VPU
-    integer math on [N, L, 8] arrays — static shapes, no host sync.
+    a single big gather; the backward pass is its transpose, computed by the
+    scatter-free segment sum (ops/segment.py). Index computation is
+    elementwise integer math on [N, L, 8] arrays — static shapes, no host
+    sync.
   * Levels whose dense vertex count fits in the table are indexed densely
     (no collisions); finer levels use the instant-ngp spatial hash
     (xor of per-axis primes, mod table size — table size is a power of two so
@@ -39,14 +40,11 @@ class HashGridSpec:
     log2_table_size: int = 16
     base_resolution: int = 16
     finest_resolution: int = 256
-    # dtype the table is cast to for the corner gather. TPU gathers copy at
-    # a fixed elements/cycle rate, so bf16 halves the dominant cost
-    # (measured 44 -> 18 ms for 3M rows x 8 features on v5e). Master params
-    # and the trilinear blend stay fp32.
+    # dtype the table is cast to for the corner gather: bf16 halves the
+    # gathered bytes. Master params and the trilinear blend stay fp32.
     gather_dtype: str = "float32"
-    # table layout (measured on v5e: XLA gather cost is dominated by a
-    # per-ROW constant below ~128-byte rows — 3M x 8-feature rows cost
-    # ~14 ms where 375k x 64-feature rows cost ~2 ms for the same bytes):
+    # table layout (the cell/hybrid layouts exist for hardware whose
+    # gather cost is dominated by a per-ROW constant — fewer, wider rows):
     #   "vertex": instant-ngp layout — one row per grid VERTEX, 8 gathers
     #             per (point, level). Exact tcnn semantics.
     #   "cell":   one row per grid CELL holding all 8 corner features
@@ -203,10 +201,8 @@ def derived_cell_rows(grid: jnp.ndarray, res: int, dtype) -> jnp.ndarray:
     """Vertex grid [(R+1)^3-shaped z-major, F] -> derived cell rows
     [R^3, 8F] with corner c = cx*4+cy*2+cz at columns [c*F, (c+1)*F) —
     exact shared-vertex semantics, no gather. Expressed as a VALID 2x2x2
-    one-hot convolution (patch extraction): measured ~1.4 ms/iter faster
-    than the 8-slice concat on v5e (narrow 8-lane minor slices relayout
-    poorly), and its autodiff transpose replaces the slice-add scatter in
-    the backward."""
+    one-hot convolution (patch extraction) instead of an 8-slice concat
+    of narrow minor slices."""
     F = grid.shape[-1]
     import os
     # NOTE: gather_dtype reaches here as the STRING "bfloat16" (GridConfig
@@ -215,12 +211,10 @@ def derived_cell_rows(grid: jnp.ndarray, res: int, dtype) -> jnp.ndarray:
     # silently disabled this knob in the first r5 A/B (cache-hit tell).
     if (np.dtype(dtype) == np.dtype(jnp.bfloat16)
             and os.environ.get("NARUTO_DENSE_BF16_CONV")):
-        # r5 glue knob: the one-hot conv copies exactly one grid value per
+        # A/B knob: the one-hot conv copies exactly one grid value per
         # output element, so bf16-casting the SMALL vertex grid first
-        # ([42^3, F], ~0.03 ms) is bit-identical to converting the 8x
-        # larger conv output ([41^3, 8F] — convert_reduce_fusion.22,
-        # 0.93 ms/iter in the r5 BA trace) and keeps the conv on the MXU's
-        # native bf16 path
+        # ([42^3, F]) is bit-identical to converting the 8x larger conv
+        # output ([41^3, 8F]) and runs the conv in bf16
         out = jax.lax.conv_general_dilated(
             grid[None].astype(jnp.bfloat16),
             jnp.asarray(_patch_kernel(F)).astype(jnp.bfloat16),
@@ -262,13 +256,10 @@ def _cell_rows_transpose(d_rows: jnp.ndarray, res: int,
     scatter, no update chain).
 
     Each corner block c of the cell cotangent adds into the vertex grid
-    at offset (cz, cy, cx). Three formulations benched on v5e:
-    transposed conv_general_dilated (2.8 ms/iter for the 42^3 level),
-    eight `.at[slice].add` updates (lowers to a SERIALIZED
-    dynamic-update-slice chain — the r4 trace shows ~2 ms/iter across the
-    dense levels + uncert grid), and this one: pad each block by its
-    offset and sum — 8 reads + 7 adds that XLA fuses into ONE elementwise
-    pass over the (R+1)^3 F output."""
+    at offset (cz, cy, cx): pad each block by its offset and sum — 8
+    reads + 7 adds that XLA fuses into ONE elementwise pass over the
+    (R+1)^3 F output (no transposed conv, no chain of eight
+    `.at[slice].add` dynamic-update-slices)."""
     F = n_features
     out = None
     for c, (cx, cy, cz) in enumerate(_CORNERS):
@@ -396,9 +387,9 @@ def _corner_indices(x: jnp.ndarray, spec: HashGridSpec):
 @functools.lru_cache(maxsize=8)
 def _repeat_matrix(n_levels: int, n_features: int) -> np.ndarray:
     """One-hot matrix R [L*8, L*8*F] with R[i, i*F+f] = 1: w_rep = w @ R
-    replicates each corner weight across its F feature columns as ONE MXU
-    matmul — the jnp.repeat formulation costs a multi-ms narrow-minor
-    reshape on v5e. Cached as NUMPY (jnp constants leak tracers)."""
+    replicates each corner weight across its F feature columns as ONE
+    matmul instead of a jnp.repeat narrow-minor reshape. Cached as NUMPY
+    (jnp constants leak tracers)."""
     L, F = n_levels, n_features
     r = np.zeros((L * 8, L * 8 * F), dtype=np.float32)
     for i in range(L * 8):
@@ -409,7 +400,7 @@ def _repeat_matrix(n_levels: int, n_features: int) -> np.ndarray:
 @functools.lru_cache(maxsize=8)
 def _blend_matrix(n_levels: int, n_features: int) -> np.ndarray:
     """Selection matrix S [L*8*F, L*F] folding the 8-corner blend into one
-    MXU matmul: out = (rows * w_rep) @ S. S[(l*8+c)*F + f, l*F + f] = 1.
+    matmul: out = (rows * w_rep) @ S. S[(l*8+c)*F + f, l*F + f] = 1.
     Cached as NUMPY (a cached jnp constant would leak tracers across
     jit traces)."""
     L, F = n_levels, n_features
@@ -427,14 +418,12 @@ def _blend(rows: jnp.ndarray, w: jnp.ndarray, spec: HashGridSpec,
     weights [n, L, 8] f32 -> blended embedding [n, L*F] f32.
 
     The weighted reduction over corners runs as ONE bf16 matmul with f32
-    accumulation — no [n, L, 8, F] float32 materialization (a multi-ms
-    reshape/fusion in the straightforward formulation on v5e)."""
+    accumulation — no [n, L, 8, F] float32 materialization."""
     L, F = spec.n_levels, spec.n_features
     # the selection/repeat matmuls are exact one-hot; keep full precision
     # on the fp32 (reference-parity) path, single-pass on the bf16 fast
-    # path. (A 3-D broadcast multiply with F as a minor dim compiled 3x
-    # SLOWER — narrow 8-lane minor layouts — and jnp.repeat costs a
-    # multi-ms reshape; the repeat-matmul avoids both.)
+    # path. (The repeat-matmul avoids a 3-D broadcast multiply with F as
+    # a narrow minor dim and a jnp.repeat reshape.)
     precision = (jax.lax.Precision.HIGHEST
                  if rows.dtype == jnp.float32 else jax.lax.Precision.DEFAULT)
     w_rep = jax.lax.dot_general(
@@ -478,11 +467,10 @@ def hash_encode(table: jnp.ndarray, x: jnp.ndarray,
     """Encode points. table: [total, F]; x: [N, 3] in [0,1].
     Returns [N, L*F] features.
 
-    Custom VJP: the natural backward is a 12M-update scatter-add into the
-    table, which XLA serializes on TPU (~1s/call measured on v5e). The
-    backward here instead uses the scatter-free sort+cumsum+searchsorted
-    segment sum (ops/segment.py) — the TPU equivalent of tcnn's atomic-add
-    CUDA kernel.
+    Custom VJP: the natural backward is a large scatter-add into the
+    table (tcnn's CUDA backward does it with atomics). The backward here
+    uses the scatter-free sort + prefix-sum segment sum (ops/segment.py)
+    instead.
     """
     out, _ = _encode_impl(table, x, spec)
     return out
@@ -512,9 +500,8 @@ def encode_grads_from_gembed(spec, table, x, idx, w, g):
     if spec.cell_rows:
         # row update = outer(corner weights, level grad) — the sort carries
         # the two rank-1 factors, the 8F-wide expansion happens post-sort.
-        # Level-major flatten: the point-major [N, L*K] -> [N*L, K]
-        # reshapes of idx/w/g cost ~7 ms/iter of physical relayouts on
-        # v5e; segment sums are row-order invariant.
+        # Level-major flatten: avoids the point-major [N, L*K] -> [N*L, K]
+        # relayouts of idx/w/g; segment sums are row-order invariant.
         if spec.sort_carry == "frac":
             # slim sort payload: one packed-frac column instead of 4
             # packed-weight columns; weights recomputed post-sort

@@ -11,11 +11,10 @@ Out-of-range coordinates are clamped to the border (torch default is zero
 padding; inputs here are normalized points inside the AABB, so only the
 half-voxel fringe differs — the learned grid adapts to whichever operator
 trains it, so border clamping is the behavior-preserving choice that also
-avoids wasted masking work on TPU).
+avoids masking work).
 
 The volume gradient uses a custom VJP through the scatter-free segment sum
-(ops/segment.py): the natural scatter-add backward is serialized by XLA on
-TPU and measured ~10^4x slower than the forward.
+(ops/segment.py) instead of the natural scatter-add backward.
 
 Also provides `trilinear_interp_volume`, the unnormalized voxel-coordinate
 interpolation used by the planner's collision checks
@@ -50,8 +49,8 @@ def _corner_data(shape, coords):
 
 def _cell_pack(vol, shape):
     """[X,Y,Z] -> [(X-1)(Y-1)(Z-1), 8]: row c holds the 8 corner values of
-    cell c in _CORNERS order. TPU gathers are row-count bound, so ONE
-    8-wide row per point replaces 8 scalar gathers (measured ~8x)."""
+    cell c in _CORNERS order: ONE 8-wide row gather per point replaces 8
+    scalar gathers."""
     X, Y, Z = shape
     slices = [vol[dx:dx + X - 1, dy:dy + Y - 1, dz:dz + Z - 1]
               for dx, dy, dz in _CORNERS]
@@ -84,8 +83,8 @@ def _trilerp_bwd(shape, res, g):
     d_cell = d_cell.reshape(X - 1, Y - 1, Z - 1, 8)
     # unpack cell-corner grads back to the vertex grid: sum of 8 corner-
     # shifted pads (the exact transpose of _cell_pack; no scatter). Pads
-    # fuse into one elementwise pass — `.at[slice].add` lowered to a
-    # serialized dynamic-update-slice chain on v5e (r4 trace).
+    # fuse into one elementwise pass instead of a chain of `.at[slice].add`
+    # dynamic-update-slices.
     d_vol = None
     for k, (dx, dy, dz) in enumerate(_CORNERS):
         p = jnp.pad(d_cell[..., k],

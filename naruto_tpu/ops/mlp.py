@@ -5,11 +5,12 @@ bias=False)` stacks with ReLU between hidden layers and no output activation;
 torch's default kaiming-uniform init gives W ~ U(-1/sqrt(fan_in),
 +1/sqrt(fan_in)).
 
-These MLPs are 2 layers x 32 hidden — far below MXU tile size on their own.
-Throughput comes from batching: the mapper evaluates them on ~10^5-10^6
-points at once, so each layer is a [N, in] x [in, out] matmul with N in the
-hundreds of thousands — MXU-friendly as long as we keep the batch dimension
-large and contiguous (which the renderer does by flattening rays x samples).
+These MLPs are 2 layers x 32 hidden — far below a matrix unit's tile size
+on their own. Throughput comes from batching: the mapper evaluates them on
+~10^5-10^6 points at once, so each layer is a [N, in] x [in, out] matmul
+with N in the hundreds of thousands, as long as the batch dimension stays
+large and contiguous (the renderer flattens rays x samples). On the GPU an
+f32 matmul runs in TF32 unless a precision is asked for.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def mlp_apply(params: List[jnp.ndarray], x: jnp.ndarray,
     """ReLU between layers, linear output, fp32 result.
 
     compute_dtype: optional lower-precision matmul dtype (bf16 weights +
-    activations with fp32 MXU accumulation — the master params stay fp32
+    activations with fp32 accumulation — the master params stay fp32
     in the optimizer; ref parity keeps None = full fp32)."""
     h = x if compute_dtype is None else x.astype(compute_dtype)
     for i, w in enumerate(params):

@@ -1,24 +1,19 @@
-"""Scatter-free dense segment sum for TPU.
+"""Scatter-free dense segment sum.
 
-XLA lowers large scatter-adds on TPU to a serialized per-update loop — the
-hash-grid gradient (12M updates/iteration) measured ~1s per call, 10^4x
-slower than the forward gather. This module computes the same dense
-accumulation from TPU-fast primitives only.
-
-Measured building-block costs on TPU v5e (12M updates -> 815k slots):
-  * int32 sort / argsort:            ~0.1 ms   (hardware-friendly path)
-  * f32-payload variadic sort:       ~40 ms per payload column
-  * random 12M gather:               ~90 ms
-  * jnp.searchsorted (binary search): ~150 ms per side
-  * XLA scatter-add:                 ~1000 ms
-
-So the design below leans exclusively on integer sorts:
-  1. values are carried through ONE variadic sort keyed by slot index;
+The hash-grid and uncertainty-grid gradients are dense accumulations of
+many small updates into table rows (`out[s] = sum of updates with index
+s`). The plain form is an XLA scatter-add; this module computes the same
+sums from sorts and prefix sums instead:
+  1. values are carried through ONE variadic sort keyed by slot index
+     (payload columns bf16-packed in pairs into int32 operands);
   2. per-slot sums come from prefix-sum differences at run boundaries;
-  3. the boundary positions (the classic searchsorted step) are computed
-     with the merge-rank trick — concatenate tagged slot sentinels with the
-     sorted keys and double-argsort to get ranks — two more int32 sorts
-     instead of a binary search.
+  3. the boundary positions (the classic searchsorted step) come from
+     `_chunk_ranks`, a compare-reduce over chunk summaries of the sorted
+     keys (`_merge_ranks`, the double-argsort merge rank, is its oracle).
+
+The sort path was built for a backend whose scatter-add was serialized;
+whether it beats scatter-add (atomics) on the GPU is an open measurement,
+and `jax.ops.segment_sum` is its reference in the tests.
 """
 from __future__ import annotations
 
@@ -94,8 +89,7 @@ def _check_even(ka: int, kb: int) -> None:
 
 
 def dense_segment_sum_outer(indices: jnp.ndarray, a: jnp.ndarray,
-                            b: jnp.ndarray, size: int,
-                            use_pallas: bool | None = None) -> jnp.ndarray:
+                            b: jnp.ndarray, size: int) -> jnp.ndarray:
     """Segment sum of rank-1 outer-product updates:
     out[s] = sum_{i: indices[i]==s} outer(a[i], b[i]), flattened to
     [size, A*B].
@@ -111,7 +105,7 @@ def dense_segment_sum_outer(indices: jnp.ndarray, a: jnp.ndarray,
     a16 = a.astype(jnp.bfloat16).reshape(m, ka // 2, 2).view(jnp.int32)[..., 0]
     b16 = b.astype(jnp.bfloat16).reshape(m, kb // 2, 2).view(jnp.int32)[..., 0]
     return _segment_sum_outer_packed(indices.astype(jnp.int32), a16, b16,
-                                     ka, kb, size, use_pallas)
+                                     ka, kb, size)
 
 
 def _pack_pairs_level_major(x2d: jnp.ndarray, n_levels: int,
@@ -119,8 +113,8 @@ def _pack_pairs_level_major(x2d: jnp.ndarray, n_levels: int,
     """[N, L*width] float -> [L*N (+pad_rows), width//2] int32 of packed
     bf16 pairs, level-major rows. Built exclusively from within-row
     reshapes, column slices, and an axis-0 concat — no [N, L*K] -> [N*L, K]
-    row-splitting reshape (which costs a multi-ms physical relayout on v5e
-    at M~500k; the segment sum is row-order invariant so level-major is
+    row-splitting reshape (a physical relayout of the whole array at
+    M~500k; the segment sum is row-order invariant so level-major is
     free). pad_rows appends zero rows INSIDE the same concat (free vs a
     separate pad that re-copies the whole array)."""
     n = x2d.shape[0]
@@ -135,15 +129,14 @@ def _pack_pairs_level_major(x2d: jnp.ndarray, n_levels: int,
 
 def dense_segment_sum_outer_level_major(
         idx_nl: jnp.ndarray, a_nl: jnp.ndarray, b_nl: jnp.ndarray,
-        size: int, use_pallas: bool | None = None) -> jnp.ndarray:
+        size: int) -> jnp.ndarray:
     """dense_segment_sum_outer for per-level batched updates, flattened
     LEVEL-major instead of point-major.
 
     idx_nl: [N, L] int32 slot ids; a_nl: [N, L, A]; b_nl: [N, L*B].
     Equivalent to dense_segment_sum_outer(idx_nl.reshape(-1), ...) up to
     within-slot summation order, but avoids the row-splitting
-    [N, L*K] -> [N*L, K] relayouts (~7 ms/iter measured in the BA step's
-    hash-grid backward at M=493k on v5e — see PERFORMANCE.md round 3).
+    [N, L*K] -> [N*L, K] relayouts of the point-major flatten.
 
     Precondition (hash-grid contract, _batched_sort): column lv's ids must
     lie in level lv's own table range [off_lv, off_lv + size_lv) and those
@@ -158,7 +151,7 @@ def dense_segment_sum_outer_level_major(
     a16 = _pack_pairs_level_major(a_nl.reshape(n, L * ka), L, ka)
     b16 = _pack_pairs_level_major(b_nl, L, kb)
     return _segment_sum_outer_packed(key, a16, b16, ka, kb, size,
-                                     use_pallas, n_batch=L)
+                                     n_batch=L)
 
 
 def _batched_sort(ops, n_batch: int):
@@ -169,10 +162,8 @@ def _batched_sort(ops, n_batch: int):
     the concatenation of per-level sorts is already globally sorted.
 
     The batched variant looks cheaper on paper (~log(N/L)/log(N) of the
-    bitonic pass count) but MEASURES SLOWER on v5e: r4 bracketed A/B
-    (results/r4_hw_queue.log) — batched 43.2 it/s vs flat 47.7 (+10.4%)
-    whole-pipeline; XLA's multi-row sort lowering doesn't recover the
-    shorter passes. Kept as an opt-in A/B knob."""
+    bitonic pass count); kept as an opt-in A/B knob (not measured on the
+    GPU)."""
     import os
     m = ops[0].shape[0]
     if (n_batch <= 1 or m % n_batch
@@ -186,8 +177,7 @@ def _batched_sort(ops, n_batch: int):
 
 def _segment_sum_outer_packed(key: jnp.ndarray, a16: jnp.ndarray,
                               b16: jnp.ndarray, ka: int, kb: int,
-                              size: int, use_pallas: bool | None,
-                              n_batch: int = 1) -> jnp.ndarray:
+                              size: int, n_batch: int = 1) -> jnp.ndarray:
     """Shared post-pack pipeline: variadic sort on packed bf16-pair
     columns, merge-rank boundaries, expand+cumsum, boundary diffs."""
     m = key.shape[0]
@@ -200,7 +190,7 @@ def _segment_sum_outer_packed(key: jnp.ndarray, a16: jnp.ndarray,
         .view(jnp.bfloat16).reshape(m, ka)
     sb16 = jnp.stack(sorted_ops[1 + ka // 2:], axis=-1)[..., None] \
         .view(jnp.bfloat16).reshape(m, kb)
-    return _outer_from_sorted(si, sa16, sb16, ka, kb, size, use_pallas)
+    return _outer_from_sorted(si, sa16, sb16, ka, kb, size)
 
 
 PACK_FRAC_BITS = 10   # 3 axes x 10-bit fixed point in one int32 sort column
@@ -235,11 +225,11 @@ def corner_weights_from_packed(qf: jnp.ndarray) -> jnp.ndarray:
 
 def dense_segment_sum_outer_level_major_frac(
         idx_nl: jnp.ndarray, frac_nl: jnp.ndarray, b_nl: jnp.ndarray,
-        size: int, use_pallas: bool | None = None) -> jnp.ndarray:
+        size: int) -> jnp.ndarray:
     """dense_segment_sum_outer_level_major with the 8 corner weights
     replaced in the SORT by one packed-frac column (see pack_frac):
     ~33% less variadic-sort payload (6 operands vs 9 at F=8), with the
-    [M, 8] weight expansion recomputed from the sorted fracs — cheap VPU
+    [M, 8] weight expansion recomputed from the sorted fracs — cheap
     elementwise work vs sort bandwidth.
 
     idx_nl: [N, L] int32 slot ids; frac_nl: [N, L, 3] in [0, 1];
@@ -248,14 +238,11 @@ def dense_segment_sum_outer_level_major_frac(
     n, L = idx_nl.shape
     kb = b_nl.shape[-1] // L
     _check_even(8, kb)
-    # r5 glue knob: append INT32_MAX-keyed zero-value rows inside the
-    # level-major concats so M is already a multiple of the Pallas cumsum
-    # block (512) — the post-sort pad of the two [M, 8] bf16 operands
-    # (pad.1137/1138, 0.77 ms/iter in the r5 BA trace) disappears; the
+    # append INT32_MAX-keyed zero-value rows inside the level-major
+    # concats so M is a multiple of 512 (the _chunk_ranks chunk); the
     # sentinel keys sort to the tail, never match a slot in _chunk_ranks
     # (which counts keys <= t < size), and contribute 0 to the cumsum.
-    # default ON since the r5 A/B (63.89 -> 67.75 it/s solo, exact output);
-    # NARUTO_PRESORT_PAD=0 restores the post-sort pad for A/B archaeology
+    # NARUTO_PRESORT_PAD=0 drops the pad (A/B knob).
     pad = ((-(n * L)) % 512
            if os.environ.get("NARUTO_PRESORT_PAD", "1") != "0" else 0)
     key_parts = [idx_nl[:, lv] for lv in range(L)]
@@ -273,77 +260,41 @@ def dense_segment_sum_outer_level_major_frac(
     si = sorted_ops[0]
     m = si.shape[0]
     sa16 = corner_weights_from_packed(sorted_ops[1]).astype(jnp.bfloat16)
-    # default "cols" since the r5 A/B (63.89 -> 67.39 it/s solo, identical
-    # element order); NARUTO_SORTED_UNPACK=stack restores the old assembly
+    # default "cols" (identical element order);
+    # NARUTO_SORTED_UNPACK=stack restores the stack+bitcast assembly
     if os.environ.get("NARUTO_SORTED_UNPACK", "cols") == "cols":
-        # r5 glue knob: reassemble the sorted bf16-pair payload column by
-        # column ([M,1] u32 -> [M,2] bf16, one axis-1 concat) instead of
-        # stack+bitcast — the stack materializes u32[M, kb/2] in a
-        # column-major layout XLA then re-copies row-major
-        # (custom-call ConcatBitcast + copy.836 + fusion.586,
-        # ~0.95 ms/iter in the r5 BA trace). Identical element order:
-        # sorted column j carries bf16 feature pair (2j, 2j+1).
+        # reassemble the sorted bf16-pair payload column by column
+        # ([M,1] u32 -> [M,2] bf16, one axis-1 concat) instead of
+        # stack+bitcast, which materializes u32[M, kb/2] column-major
+        # and re-copies it row-major. Identical element order: sorted
+        # column j carries bf16 feature pair (2j, 2j+1).
         sb16 = jnp.concatenate(
             [c[:, None].view(jnp.bfloat16) for c in sorted_ops[2:]],
             axis=1)
     else:
         sb16 = jnp.stack(sorted_ops[2:], axis=-1)[..., None] \
             .view(jnp.bfloat16).reshape(m, kb)
-    return _outer_from_sorted(si, sa16, sb16, 8, kb, size, use_pallas)
+    return _outer_from_sorted(si, sa16, sb16, 8, kb, size)
 
 
 def _outer_from_sorted(si: jnp.ndarray, sa16: jnp.ndarray,
-                       sb16: jnp.ndarray, ka: int, kb: int, size: int,
-                       use_pallas: bool | None) -> jnp.ndarray:
+                       sb16: jnp.ndarray, ka: int, kb: int,
+                       size: int) -> jnp.ndarray:
     """Post-sort tail shared by the weight-carry and frac-carry paths:
-    run boundaries, fused (or XLA) expand+cumsum, boundary diffs."""
+    run boundaries, outer-product expansion, f32 prefix sums, boundary
+    diffs."""
     m = si.shape[0]
     ub = _chunk_ranks(si, size)
-
-    from naruto_tpu.ops.pallas_kernels import (outer_cumsum,
-                                               outer_cumsum_supported)
-
-    if use_pallas is None:
-        use_pallas = outer_cumsum_supported()
-    if use_pallas:
-        # fused expand+cumsum in one VMEM-resident pass (saves the [M, A*B]
-        # f32 materialization + XLA's log-pass cumsum)
-        pad = (-m) % 512
-        if pad:
-            sa16 = jnp.concatenate(
-                [sa16, jnp.zeros((pad, ka), sa16.dtype)])
-            sb16 = jnp.concatenate(
-                [sb16, jnp.zeros((pad, kb), sb16.dtype)])
-        interp = jax.default_backend() != "tpu"
-        cs_inc = outer_cumsum(sa16, sb16, interpret=interp)  # inclusive
-        import os
-        if os.environ.get("NARUTO_BOUND_DIFF") == "gather2":
-            # A/B knob (r5): shift the TINY index vector and gather twice
-            # instead of padding/shifting the WIDE [size, A*B] hi — trades
-            # the size*A*B-footprint pad+subtract for a second boundary
-            # gather that XLA can fuse into the subtraction
-            ub_prev = jnp.concatenate(
-                [jnp.zeros((1,), ub.dtype), ub[:-1]])
-            hi = jnp.where((ub > 0)[:, None],
-                           cs_inc[jnp.maximum(ub - 1, 0)], 0.0)
-            lo = jnp.where((ub_prev > 0)[:, None],
-                           cs_inc[jnp.maximum(ub_prev - 1, 0)], 0.0)
-            return hi - lo
-        # hi[t] = total of all entries with key <= t (monotone per slot);
-        # per-slot sums are adjacent differences — ONE boundary gather
-        # instead of two (the lo gather is just hi shifted by one slot)
-        hi = jnp.where((ub > 0)[:, None],
-                       cs_inc[jnp.maximum(ub - 1, 0)], 0.0)
-        return hi - jnp.concatenate(
-            [jnp.zeros((1, hi.shape[1]), hi.dtype), hi[:-1]])
-
-    # outer product in bf16 (then f32 prefix sums) — matches the Pallas
-    # kernel's bf16 MXU formulation so both branches agree numerically
+    # outer product in bf16 (one rounding of the bf16 factors' product),
+    # then f32 prefix sums
     sv = (sa16[:, :, None] * sb16[:, None, :]).astype(jnp.float32) \
         .reshape(m, ka * kb)
     cs = jnp.concatenate(
         [jnp.zeros((1, ka * kb), jnp.float32), jnp.cumsum(sv, axis=0)],
         axis=0)
+    # hi[t] = total of all entries with key <= t (monotone per slot);
+    # per-slot sums are adjacent differences — ONE boundary gather
+    # instead of two (the lo gather is just hi shifted by one slot)
     hi = cs[ub]
     return hi - jnp.concatenate(
         [jnp.zeros((1, hi.shape[1]), hi.dtype), hi[:-1]])

@@ -1,11 +1,14 @@
 """Device mesh helpers.
 
 The reference is single-GPU with no distributed execution (SURVEY.md §2.7).
-The TPU-native scale axes are:
+The one scale axis is:
   * 'data' — the ray batch (rays are embarrassingly parallel; grads
-    all-reduced over ICI by XLA) and the voxel axis of dense volume queries.
-Params (hash table ~2.5M floats, MLPs tiny) are replicated — tensor
-parallelism would be counterproductive at this size.
+    all-reduced by XLA) and the voxel axis of dense volume queries.
+The mesh is 1-D over every visible device: on cards joined all to all
+(NVLink) every device reaches every other at the same rate, so the mesh
+follows the algorithm alone. Params (hash table ~13M floats, MLPs tiny)
+are replicated — tensor parallelism would be counterproductive at this
+size.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Strategy (SURVEY.md §2.7/§5.7): shard the ray axis and the voxel axis across
 devices with `jax.sharding` annotations under one jit; the field params stay
-replicated, and XLA inserts the all-reduce (psum over ICI) for the gradient
+replicated, and XLA inserts the all-reduce (psum) for the gradient
 of the mean losses automatically. No hand-written collectives needed at this
 model scale — the sharding annotations ARE the parallelism.
 """
@@ -23,7 +23,7 @@ def sharded_grad_step(mesh: Mesh, spec: FieldSpec, rc: RenderConfig,
     """Build a jitted data-parallel (loss, grads) fn over the given mesh.
 
     Rays are sharded along 'data'; params replicated; returned grads are
-    fully replicated (XLA all-reduces over ICI).
+    fully replicated (XLA all-reduces them).
     """
     data = NamedSharding(mesh, P("data"))
     repl = NamedSharding(mesh, P())

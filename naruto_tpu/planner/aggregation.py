@@ -1,4 +1,4 @@
-"""Uncertainty aggregation over the goal space — jitted TPU kernel.
+"""Uncertainty aggregation over the goal space — one jitted program.
 
 Behavioral contract from src/planner/naruto_planner.py:596-735
 (uncertainty_aggregation_v2):
@@ -14,8 +14,8 @@ Behavioral contract from src/planner/naruto_planner.py:596-735
   * a goal's aggregated score = sum of the uncertainties of its valid
     targets; per-pair contributions are also returned for look-at selection.
 
-Everything is dense tensor math over [G, K(, 30)] — a natural TPU kernel;
-the reference runs the same math as torch CUDA ops with dynamic masking.
+Everything is dense tensor math over [G, K(, 30)] with static shapes; the
+reference runs the same math as torch CUDA ops with dynamic masking.
 """
 from __future__ import annotations
 

@@ -80,6 +80,7 @@ def main(argv=None):
             resume = None
     engine.run(resume_from=resume)
     engine.finalize()
+    return engine
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ lacks but its factory structure invites (SURVEY.md §4).
 The scene is a closed box room fitted to the mapping AABB (walls inset by a
 margin) plus interior primitives; colors are a smooth procedural field so
 the photometric loss has gradient signal. Rendering is jitted sphere
-tracing — 64 fixed steps over [H*W] rays, pure VPU math.
+tracing — 64 fixed steps over [H*W] rays, pure elementwise math.
 """
 from __future__ import annotations
 
@@ -38,8 +38,8 @@ def make_scene_sdf(bound: np.ndarray, preset: str = "box_room"):
     (ref habitat_utils.py:342-426)."""
     # scene constants in host numpy (np.float32 = the same IEEE ops the
     # f32 device constants used, so GT numerics are bit-identical): eager
-    # jnp constants + float() pulls here cost ~25 device round trips per
-    # engine construction on the remote-execute backend
+    # jnp constants + float() pulls here would cost ~25 device round trips
+    # per engine construction
     lo = np.asarray(bound[:, 0] + WALL_MARGIN, dtype=np.float32)
     hi = np.asarray(bound[:, 1] - WALL_MARGIN, dtype=np.float32)
     center = (lo + hi) / 2.0

@@ -1,6 +1,6 @@
-"""Double-buffered host->HBM frame streaming for passive mapping.
+"""Double-buffered host->device frame streaming for passive mapping.
 
-BASELINE.json's north star calls for double-buffered host-to-HBM frame
+BASELINE.json's north star calls for double-buffered host-to-device frame
 transfer. In ACTIVE mode the next pose depends on this step's planner output
 (SURVEY.md §5.2), so prefetch is impossible by dataflow; in PASSIVE mode
 (predefined trajectory — replay/raycast backends reading from host memory)

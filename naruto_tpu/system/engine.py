@@ -125,7 +125,7 @@ class Engine:
                          start, "Engine")
 
         # passive mode: frame i+1's pose is known -> double-buffered
-        # host->HBM streaming (BASELINE north star; impossible in active
+        # host->device streaming (BASELINE north star; impossible in active
         # mode where the pose depends on this step's planner output)
         # the raw frame has a consumer outside the mapper only when a
         # visualizer saves/shows rgbd; everything else (poses, paths,

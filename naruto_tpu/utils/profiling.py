@@ -1,6 +1,6 @@
 """Device profiling hooks.
 
-The reference only has the wall-clock Timer (SURVEY.md §5.1); on TPU we add
+The reference only has the wall-clock Timer (SURVEY.md §5.1); here we add
 `jax.profiler` trace capture so kernels show up in TensorBoard/XProf, plus a
 tiny helper to time a jitted callable with block_until_ready.
 """

@@ -1,12 +1,12 @@
 """Dump the compiled (post-optimization) HLO of the production BA step.
 
-The device trace (scripts/trace_summary.py) names ops like `pad.1137` /
-`copy.836`; this dump lets those names be matched to actual HLO
+The device trace (scripts/trace_summary.py) names fused ops by their HLO
+instruction names; this dump lets those names be matched to actual HLO
 instructions (operand shapes + source metadata) so glue ops can be traced
-back to the Python that emitted them. Cache-warm compile: run after
-bench.py has populated .jax_cache.
+back to the Python that emitted them. The compile reuses the persistent
+cache bench.py fills.
 
-Run on the device host: python scripts/dump_ba_hlo.py > results/r5_ba_hlo.txt
+Run on a GPU: python scripts/dump_ba_hlo.py > ba_hlo.txt
 """
 from __future__ import annotations
 

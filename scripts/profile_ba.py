@@ -1,6 +1,6 @@
 """Capture a jax.profiler trace of the steady-state BA step (bench setup).
 
-Run: python scripts/profile_ba.py [--trace-dir /tmp/ba_trace]
+Run on a GPU: python scripts/profile_ba.py [--trace-dir /tmp/ba_trace]
 Then inspect the .trace.json.gz with scripts/trace_summary.py.
 """
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Run: python scripts/trace_summary.py /tmp/ba_trace [--top 40]
 Finds the newest *.trace.json.gz under the dir, aggregates complete events
-on TPU device tracks (pid names containing 'TPU'/'/device:'), prints the
-top ops by total duration.
+on GPU device tracks (pid names containing '/device:GPU:'), prints the top
+ops by total duration.
 """
 from __future__ import annotations
 
@@ -37,8 +37,7 @@ def main() -> None:
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pnames[e["pid"]] = e["args"].get("name", "")
-    device_pids = {pid for pid, n in pnames.items()
-                   if "TPU" in n or "/device:" in n or "Device" in n}
+    device_pids = {pid for pid, n in pnames.items() if "/device:GPU:" in n}
 
     tot = collections.Counter()
     cnt = collections.Counter()

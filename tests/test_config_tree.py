@@ -131,7 +131,7 @@ def test_empty_section_in_inherit_merge(tmp_path):
 def test_shipped_preset_semantics():
     """Pin the knobs the shipped overlay presets exist to set: a silent
     key rename in the schema must fail HERE, not mid-run on hardware.
-    turbo composition / pricing: PERFORMANCE.md "Turbo frontier"."""
+    turbo composition: configs/turbo.yaml."""
     from naruto_tpu.config import load_config
 
     turbo = load_config(os.path.join(REPO, "configs", "turbo.yaml"))

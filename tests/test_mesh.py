@@ -108,7 +108,7 @@ class TestPly:
 class TestExtractChunking:
     """The dense-extraction queries chunk at EXTRACT_CHUNK points and
     zero-pad the tail chunk to a power-of-two family of static shapes
-    (mesh/extract.py:_pad_rows; the r4 remote-dispatch batching). Chunked
+    (mesh/extract.py:_pad_rows). Chunked
     + padded results must be bit-identical to a single unchunked query."""
 
     def _mapper(self):

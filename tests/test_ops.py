@@ -162,10 +162,8 @@ class TestMLP:
 
 
 class TestEmbedAdam:
-    """The hand-rolled table Adam (mapper._embed_adam_update — the Pallas
-    fused_adam kernel was deleted in r4 after the XLA form measured
-    faster) matches optax scale_by_adam(eps_root=0) + scale(-lr) step by
-    step."""
+    """The hand-rolled table Adam (mapper._embed_adam_update) matches
+    optax scale_by_adam(eps_root=0) + scale(-lr) step by step."""
 
     def test_matches_optax_over_steps(self):
         import optax

@@ -177,14 +177,13 @@ def test_mapper_sharded_volumes():
 
 
 def test_sharded_grad_collective_structure():
-    """Structural guard (VERDICT r3 weak#5): the collectives XLA inserts
-    into the sharded production gradient must not silently grow — every
-    extra collective is ICI time on real hardware. Counts are from the
+    """Structural guard: the collectives XLA inserts into the sharded
+    production gradient must not silently grow — every extra collective
+    is interconnect time on real hardware. Counts are from the
     CPU-backend lowering (shard_map psum lowers to all-gather /
-    collective-permute chains there; on TPU the same psum becomes
-    all-reduce over ICI), so the guard pins the STRUCTURE, not the TPU op
-    mix. scripts/multichip_collectives.py prints the full accounting +
-    the projected it/s-vs-chips curve."""
+    collective-permute chains there; on GPUs the same psum becomes an
+    NCCL all-reduce), so the guard pins the STRUCTURE, not the device op
+    mix."""
     import importlib.util
     import pathlib
     import re
@@ -226,8 +225,7 @@ def test_sharded_grad_collective_structure():
 
 
 def test_sharded_volume_collective_structure():
-    """Same structural pin for the sharded dense volume query (VERDICT r4
-    next-step #8): the query is embarrassingly data-parallel over the
+    """Same structural pin for the sharded dense volume query: the query is embarrassingly data-parallel over the
     flattened voxel axis — replicated params in, sharded sdf/uncert out —
     so the compiled program must contain NO collectives at all (any
     all-gather here would mean XLA is resharding the voxel axis or

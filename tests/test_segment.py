@@ -76,7 +76,7 @@ class TestSegmentSum:
 
     def test_outer_level_major_matches_point_major(self, rng):
         """Level-major flatten (relayout-free BA path) computes the same
-        per-slot sums as the point-major flatten, for both branches."""
+        per-slot sums as the point-major flatten."""
         from naruto_tpu.ops.segment import \
             dense_segment_sum_outer_level_major
         size, n, L, F = 96, 700, 4, 8
@@ -91,12 +91,10 @@ class TestSegmentSum:
         ref = dense_segment_sum_outer(
             idx.reshape(-1), w.reshape(-1, 8),
             g.reshape(n, L, F).reshape(-1, F), size)
-        for use_pallas in (False, True):
-            out = dense_segment_sum_outer_level_major(
-                idx, w, g, size, use_pallas=use_pallas)
-            scale = float(np.abs(np.asarray(ref)).max())
-            np.testing.assert_allclose(np.asarray(out) / scale,
-                                       np.asarray(ref) / scale, atol=2e-3)
+        out = dense_segment_sum_outer_level_major(idx, w, g, size)
+        scale = float(np.abs(np.asarray(ref)).max())
+        np.testing.assert_allclose(np.asarray(out) / scale,
+                                   np.asarray(ref) / scale, atol=2e-3)
 
     def test_batched_sort_equals_flat_sort(self, rng):
         """Per-level batched sort of level-major operands with disjoint
@@ -120,9 +118,8 @@ class TestSegmentSum:
         assert cb == cf
 
     def test_batched_sort_env_gate(self, rng, monkeypatch):
-        """Default is the single flat lax.sort (r4 bracketed A/B: flat
-        47.7 vs batched 43.2 it/s); NARUTO_BATCHED_SORT=1 opts into the
-        per-level batched sort. Results must be identical either way on
+        """Default is the single flat lax.sort; NARUTO_BATCHED_SORT=1 opts
+        into the per-level batched sort. Results must be identical either way on
         the disjoint-range contract, and the two calls must actually take
         DIFFERENT routes (a silently broken gate would bench the same
         graph twice in the hardware A/B)."""
@@ -178,8 +175,7 @@ class TestSegmentSum:
 
     def test_outer_frac_carry_matches_weight_carry(self, rng):
         """The slim frac-carry sort payload computes the same segment sums
-        as the weight-carry path (up to the 10-bit frac quantization),
-        for both the Pallas and XLA tails."""
+        as the weight-carry path (up to the 10-bit frac quantization)."""
         from naruto_tpu.ops.encoding import _corner_weights
         from naruto_tpu.ops.segment import (
             dense_segment_sum_outer_level_major,
@@ -192,14 +188,11 @@ class TestSegmentSum:
         frac = jnp.asarray(rng.uniform(0, 1, (n, L, 3)).astype(np.float32))
         g = jnp.asarray(rng.normal(size=(n, L * F)).astype(np.float32))
         w = _corner_weights(frac)
-        ref = dense_segment_sum_outer_level_major(idx, w, g, size,
-                                                  use_pallas=False)
+        ref = dense_segment_sum_outer_level_major(idx, w, g, size)
         scale = float(np.abs(np.asarray(ref)).max())
-        for use_pallas in (False, True):
-            out = dense_segment_sum_outer_level_major_frac(
-                idx, frac, g, size, use_pallas=use_pallas)
-            np.testing.assert_allclose(np.asarray(out) / scale,
-                                       np.asarray(ref) / scale, atol=6e-3)
+        out = dense_segment_sum_outer_level_major_frac(idx, frac, g, size)
+        np.testing.assert_allclose(np.asarray(out) / scale,
+                                   np.asarray(ref) / scale, atol=6e-3)
 
 
 class TestHashEncodeVJP:
@@ -378,47 +371,57 @@ class TestTrilerpVJP:
                                        atol=1e-3)
 
 
-class TestPallasOuterCumsum:
-    def test_matches_xla_cumsum_interpret(self, rng):
-        """Pallas fused expand+cumsum kernel (interpret mode on CPU) equals
-        the XLA expansion+cumsum."""
-        import jax
-        from naruto_tpu.ops.pallas_kernels import outer_cumsum
+class TestAgainstSegmentSum:
+    """Every sort-path segment sum against jax.ops.segment_sum of the same
+    float32 updates (the plain form: an XLA scatter-add). Tolerances are
+    relative to the max: summation order only for the f32 payload; one
+    bf16 rounding per factor and of the product where payloads are
+    packed; plus the 10-bit frac quantization for the frac carry."""
 
-        m = 1024
-        sa = jnp.asarray(rng.normal(size=(m, 8)), jnp.bfloat16)
-        sb = jnp.asarray(rng.normal(size=(m, 4)), jnp.bfloat16)
-        got = outer_cumsum(sa, sb, interpret=True)
-        # the kernel forms the outer product in bf16 (MXU-rate matmul)
-        sv = (sa[:, :, None] * sb[:, None, :]).astype(jnp.float32) \
-            .reshape(m, 32)
-        ref = jnp.cumsum(sv, axis=0)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=1e-5, atol=1e-4)
+    SIZE, N, L, F = 96, 700, 4, 8
 
-    def test_carry_across_blocks_interpret(self, rng):
-        """Carry propagates across the 16k-row grid blocks."""
-        from naruto_tpu.ops.pallas_kernels import BK, outer_cumsum
+    def _inputs(self, rng):
+        per = self.SIZE // self.L
+        idx = jnp.asarray(rng.integers(0, per, (self.N, self.L))
+                          + np.arange(self.L) * per, dtype=jnp.int32)
+        frac = jnp.asarray(rng.uniform(0, 1, (self.N, self.L, 3))
+                           .astype(np.float32))
+        g = jnp.asarray(rng.normal(size=(self.N, self.L * self.F))
+                        .astype(np.float32))
+        return idx, frac, g
 
-        m = BK + 512
-        sa = jnp.ones((m, 2), jnp.bfloat16)
-        sb = jnp.ones((m, 2), jnp.bfloat16)
-        got = outer_cumsum(sa, sb, interpret=True)
-        np.testing.assert_allclose(np.asarray(got[-1]), float(m), rtol=1e-6)
-
-    def test_outer_pallas_branch_matches(self, rng):
-        """dense_segment_sum_outer's Pallas branch (interpret mode off-TPU)
-        equals the XLA branch."""
-        size = 64
-        m = 1500
-        idx = jnp.asarray(rng.integers(0, size, m), dtype=jnp.int32)
-        a = jnp.asarray(rng.normal(size=(m, 8)).astype(np.float32))
-        b = jnp.asarray(rng.normal(size=(m, 8)).astype(np.float32))
-        out_xla = dense_segment_sum_outer(idx, a, b, size, use_pallas=False)
-        out_pl = dense_segment_sum_outer(idx, a, b, size, use_pallas=True)
-        scale = float(np.abs(np.asarray(out_xla)).max())
-        np.testing.assert_allclose(np.asarray(out_pl) / scale,
-                                   np.asarray(out_xla) / scale, atol=1e-3)
+    @pytest.mark.parametrize("path,tol", [
+        ("f32", 1e-5), ("bf16", 5e-3), ("outer", 5e-3),
+        ("outer_level_major", 5e-3), ("outer_level_major_frac", 1.2e-2)])
+    def test_matches_segment_sum(self, rng, path, tol):
+        from naruto_tpu.ops.encoding import _corner_weights
+        from naruto_tpu.ops.segment import (
+            dense_segment_sum_outer_level_major,
+            dense_segment_sum_outer_level_major_frac)
+        idx, frac, g = self._inputs(rng)
+        n, L, F, size = self.N, self.L, self.F, self.SIZE
+        w = _corner_weights(frac)                         # [N, L, 8]
+        idx_f = idx.T.reshape(-1)                         # level-major
+        w_f = jnp.transpose(w, (1, 0, 2)).reshape(-1, 8)
+        g_f = jnp.transpose(g.reshape(n, L, F), (1, 0, 2)).reshape(-1, F)
+        if path in ("f32", "bf16"):
+            out = dense_segment_sum(idx_f, g_f, size,
+                                    pack_bf16=path == "bf16")
+            ref = jax.ops.segment_sum(g_f, idx_f, num_segments=size)
+        else:
+            if path == "outer":
+                out = dense_segment_sum_outer(idx_f, w_f, g_f, size)
+            elif path == "outer_level_major":
+                out = dense_segment_sum_outer_level_major(idx, w, g, size)
+            else:
+                out = dense_segment_sum_outer_level_major_frac(
+                    idx, frac, g, size)
+            ref = jax.ops.segment_sum(
+                (w_f[:, :, None] * g_f[:, None, :]).reshape(-1, 8 * F),
+                idx_f, num_segments=size)
+        scale = float(np.abs(np.asarray(ref)).max())
+        np.testing.assert_allclose(np.asarray(out) / scale,
+                                   np.asarray(ref) / scale, atol=tol)
 
 
 class TestHybridLayout:
@@ -503,8 +506,8 @@ class TestHybridLayout:
 
 
 class TestR5GlueKnobs:
-    """r5 trace-targeted graph knobs must be EXACTLY output-preserving —
-    they reshuffle data movement (pads, stacks, converts), not math."""
+    """Data-movement graph knobs must be EXACTLY output-preserving —
+    they reshuffle pads, stacks and converts, not math."""
 
     def _frac_inputs(self, rng, n=333, L=4, per=16):
         # level-range contract: column lv's ids in [lv*per, (lv+1)*per)
@@ -515,10 +518,10 @@ class TestR5GlueKnobs:
         return jnp.asarray(idx), jnp.asarray(frac), jnp.asarray(b), L * per
 
     def test_presort_pad_exact(self, rng, monkeypatch):
-        """NARUTO_PRESORT_PAD folds the Pallas 512-alignment into the
-        pre-sort concats; sentinel rows (INT32_MAX key, zero values) must
-        leave every slot's sum bit-identical. n*L=1332 is NOT a multiple
-        of 512 so the pad path is actually exercised."""
+        """NARUTO_PRESORT_PAD folds a 512-alignment into the pre-sort
+        concats; sentinel rows (INT32_MAX key, zero values) must leave
+        every slot's sum bit-identical. n*L=1332 is NOT a multiple of 512
+        so the pad path is actually exercised."""
         from naruto_tpu.ops.segment import (
             dense_segment_sum_outer_level_major_frac as f)
         idx, frac, b, size = self._frac_inputs(rng)
